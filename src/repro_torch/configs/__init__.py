@@ -1,0 +1,5 @@
+from repro_torch.configs.base import (ModelConfig, get_config, list_archs,
+                                      register, scaled_down)
+
+__all__ = ["ModelConfig", "get_config", "list_archs", "register",
+           "scaled_down"]

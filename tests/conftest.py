@@ -32,6 +32,11 @@ import pytest
 from repro.configs import get_config, scaled_down
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on a host without one")
+
+
 TINY_OVERRIDES = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128,
                       num_heads=4, num_kv_heads=2, head_dim=16)
 
