@@ -24,6 +24,11 @@ class KernelSet:
     rmsnorm: Callable          # (x, w, eps) -> x's type
     attention: Callable        # (q, k, v, *, causal) model layout
     paged_decode: Callable     # (q, k_pool, v_pool, tables, lengths)
+    paged_verify: Callable     # (q (B,T,H,D), k_pool, v_pool, tables,
+                               #  lengths)
+    paged_decode_int8: Callable  # (q, k_pool, v_pool, k_scale, v_scale,
+                                 #  tables, lengths), int8 pools
+    paged_verify_int8: Callable  # as paged_decode_int8, q (B,T,H,D)
 
 
 def _plain_attention(q, k, v, *, causal=True, kv_len=None):
@@ -32,13 +37,23 @@ def _plain_attention(q, k, v, *, causal=True, kv_len=None):
 
 
 KERNELS = KernelSet(rmsnorm=_rms.rmsnorm, attention=_flash.mha,
-                    paged_decode=_paged.paged_decode)
+                    paged_decode=_paged.paged_decode,
+                    paged_verify=_paged.paged_verify,
+                    paged_decode_int8=_paged.paged_decode_int8,
+                    paged_verify_int8=_paged.paged_verify_int8)
 PLAIN = KernelSet(rmsnorm=_rms_ref.rmsnorm_ref, attention=_plain_attention,
-                  paged_decode=_paged_ref.paged_decode_ref)
+                  paged_decode=_paged_ref.paged_decode_ref,
+                  paged_verify=_paged_ref.paged_verify_ref,
+                  paged_decode_int8=_paged_ref.paged_decode_int8_ref,
+                  paged_verify_int8=_paged_ref.paged_verify_int8_ref)
 
-# kernel name -> its launching wrapper (each counts its own launches)
+# kernel name (the TPU kernel's) -> its launching wrapper (each counts its
+# own launches)
 WRAPPERS = {"rmsnorm": _rms.rmsnorm, "flash_attention": _flash.mha,
-            "paged_decode_attention": _paged.paged_decode}
+            "paged_decode_attention": _paged.paged_decode,
+            "paged_verify_attention": _paged.paged_verify,
+            "paged_decode_attention_int8": _paged.paged_decode_int8,
+            "paged_verify_attention_int8": _paged.paged_verify_int8}
 
 
 def launch_counts() -> Dict[str, int]:

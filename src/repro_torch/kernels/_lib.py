@@ -38,6 +38,8 @@ SIGNATURES = {
                      _F, _I] + [_LL] * 12 + [_VP],
     "rt_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                         _I, _F, _I, _VP],
+    "rt_paged_verify": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
+    "rt_paged_int8": [_VP] * 8 + [_I] * 7 + [_F, _I, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,8 +6,12 @@ API, as in the reference:
   init(cfg, seed, dtype, device)         -> params (same leaf paths)
   prefill(cfg, params, batch)            -> (logits_last, cache, aux)
   make_paged_pool(cfg, blocks, size)     -> {"stack": {"k", "v"}}
+  make_quantized_paged_pool(cfg, blocks, size)
+                              -> {"stack": {"k", "v", "k_scale", "v_scale"}}
   decode_step_paged(cfg, params, tokens, pool, tables, lengths)
                                          -> (logits, pool)
+  verify_step_paged(cfg, params, tokens, pool, tables, lengths)
+                                         -> (logits (B,T,V), pool)
 
 Layer stacks keep the reference's stacked layout (leading ``layers``
 axis under ``params["stack"]``); a Python loop over layers replaces
@@ -102,6 +106,29 @@ def make_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
                       "v": torch.zeros(shape, dtype=dtype, device=dev)}}
 
 
+def make_quantized_paged_pool(cfg: ModelConfig, num_blocks: int,
+                              block_size: int, device=None):
+    """Int8 paged pool: :func:`make_paged_pool`'s layout with int8 block
+    data, plus float32 per-block-per-KV-head scales riding in the same
+    layer dict (``k_scale``/``v_scale`` of (layers, num_blocks, KV)), so
+    the layer loop and the byte accounting treat them as pool leaves.
+    Scales start at 0 (a block's first write sets them)."""
+    pool = make_paged_pool(cfg, num_blocks, block_size, torch.int8, device)
+    st = pool["stack"]
+    shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads)
+    for name in ("k", "v"):
+        st[name + "_scale"] = torch.zeros(shape, dtype=torch.float32,
+                                          device=st[name].device)
+    return pool
+
+
+def supports_speculative(cfg: ModelConfig) -> bool:
+    """True iff the engine can run speculative decoding: rejected tokens
+    are rolled back by length-masking per-position KV, which needs the
+    same position-sliceable caches as the paged path."""
+    return supports_paged_cache(cfg)
+
+
 # --------------------------------------------------------------- forward
 def _layer(stack, l: int):
     return tree_map(lambda t: t[l], stack)
@@ -110,15 +137,16 @@ def _layer(stack, l: int):
 def _backbone(cfg: ModelConfig, params, x, positions, *, mode: str,
               cache=None, paged=None, kernels: KernelSet = KERNELS):
     """Run all layers, then ln_f.  Returns (hidden, new_cache).  Prefill
-    returns the stacked (L,B,S,KV,hd) K/V; paged decode updates the pool
-    in place and returns it.  The rotary tables (and, in decode, the
-    paged write positions) are worked out once for all layers."""
+    returns the stacked (L,B,S,KV,hd) K/V; paged decode and verify update
+    the pool (bf16, or int8 with its scale leaves) in place and return
+    it.  The rotary tables (and, in decode, the paged write positions)
+    are worked out once for all layers."""
     rope = rope_tables(cfg, positions, cfg.head_dim)
     ks, vs = [], []
     for l in range(cfg.num_layers):
         cl = None
         if cache is not None:
-            cl = {"k": cache["stack"]["k"][l], "v": cache["stack"]["v"][l]}
+            cl = {n: t[l] for n, t in cache["stack"].items()}
         x, nc = apply_layer(cfg, _layer(params["stack"], l), x, rope,
                             mode=mode, cache=cl, paged=paged,
                             kernels=kernels)
@@ -153,17 +181,35 @@ def prefill(cfg: ModelConfig, params, batch, *,
 
 def decode_step_paged(cfg: ModelConfig, params, tokens, pool, block_tables,
                       lengths, *, kernels: KernelSet = KERNELS):
-    """One decode step over a paged KV pool (see :func:`make_paged_pool`).
+    """One decode step over a paged KV pool (see :func:`make_paged_pool`):
+    :func:`verify_step_paged` with T = 1.
 
     tokens (B,1) int; block_tables (B, max_blocks) int32; lengths (B,)
     int32 valid tokens including this one.  The new token's KV is written
     into ``pool`` in place.  Returns (logits (B,V) f32, pool)."""
-    pos = (lengths.long() - 1)[:, None]
+    logits, pool = verify_step_paged(cfg, params, tokens, pool, block_tables,
+                                     lengths, kernels=kernels)
+    return logits[:, 0], pool
+
+
+def verify_step_paged(cfg: ModelConfig, params, tokens, pool, block_tables,
+                      lengths, *, kernels: KernelSet = KERNELS):
+    """Speculative verify over a paged pool: score a T-token tail in one
+    forward.  tokens (B,T) int -- ``tokens[:, 0]`` the last emitted token
+    (its KV not yet written), ``tokens[:, 1:]`` the drafts; lengths (B,)
+    int32 valid tokens including all T, so token t sits at position
+    ``lengths - T + t`` (a tail may straddle a block).  All T positions'
+    KV are written into ``pool`` (bf16 or int8) in place; rejected
+    positions are rolled back by the caller shrinking lengths.  T == 1
+    runs the decode kernels.  Returns (logits (B,T,V) f32, pool):
+    ``logits[:, t]`` is the target for the token after position t."""
+    T = tokens.shape[1]
+    pos = (lengths.long()[:, None] - T
+           + torch.arange(T, device=tokens.device)[None, :])
     x = embed_tokens(cfg, params["embed"], tokens)
     paged = PagedStep.make(block_tables, lengths,
-                           pool["stack"]["k"].shape[2])
+                           pool["stack"]["k"].shape[2], T)
     x, pool = _backbone(cfg, params, x, pos, mode="decode", cache=pool,
                         paged=paged, kernels=kernels)
-    logits = unembed(cfg, params["embed"], x[:, 0]).float()
+    logits = unembed(cfg, params["embed"], x).float()
     return logits, pool
-

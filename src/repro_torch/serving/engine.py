@@ -1,17 +1,19 @@
-"""Continuous-batching inference engine (the unified, paged, bf16-KV,
-greedy path of the reference's ``serving/engine.py``).
+"""Continuous-batching inference engine (the unified, paged, greedy path
+of the reference's ``serving/engine.py``, with n-gram speculative decoding
+and a bf16 or int8 KV pool).
 
 One engine = one model replica on one device: a fixed decode batch of
 ``max_batch`` slots over a shared paged KV pool
 (:class:`~repro_torch.serving.kvcache.PagedCacheSlots`), a waiting queue,
 pow2-bucketed one-shot prefill, and per-request TTFT/ITL/E2EL metrics.
-Admission, chunked prefill, prefix reuse and preemption live in
-:class:`~repro_torch.serving.scheduler.ChunkedPrefillScheduler`.
+Admission, chunked prefill, prefix reuse, preemption and speculative
+bursts live in :class:`~repro_torch.serving.scheduler.ChunkedPrefillScheduler`.
 
-Each model step runs eagerly: prefill and every decode micro-step call
-the hand-written kernels (RMSNorm, flash prefill, paged decode) on the
-card, and a micro-step costs one device-to-host transfer of the sampled
-tokens for the whole batch.
+Each model step runs eagerly: prefill and every decode or verify
+micro-step call the hand-written kernels (RMSNorm, flash prefill, paged
+decode and verify, over bf16 or int8 pools) on the card, and a
+micro-step costs one device-to-host transfer of the sampled (or
+accepted) tokens for the whole batch.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.serving.kvcache import PagedCacheSlots
 from repro_torch.serving.metrics import MetricsCollector
 from repro_torch.serving.scheduler import (ChunkedPrefillScheduler,
                                            SchedulerConfig)
+from repro_torch.serving.speculative import make_drafter
 
 
 @dataclasses.dataclass
@@ -56,25 +59,49 @@ class InferenceEngine:
                  name: str = "engine0",
                  sched: Optional[SchedulerConfig] = None,
                  pool_tokens: Optional[int] = None,
+                 speculative: Optional[str] = None,
+                 spec_k: int = 4,
+                 kv_dtype: str = "bf16",
                  device=None):
         """``params`` is a tree from ``M.init`` or ``from_numpy_tree`` on
         ``device`` (default: the card; on a host without one, pass
         ``device="cpu"`` or the constructor raises).  ``pool_tokens``
-        sizes the shared block pool (default ``max_batch * capacity``);
-        its block size is the scheduler's ``prefix_block``, so radix
-        nodes map 1:1 onto physical blocks."""
+        sizes the shared block pool (default ``max_batch * capacity``, a
+        bf16-byte budget); its block size is the scheduler's
+        ``prefix_block``, so radix nodes map 1:1 onto physical blocks.
+        ``speculative="ngram"`` drafts up to ``spec_k`` tokens a slot by
+        prompt lookup and verifies them in one forward (greedy outputs
+        stay token-identical).  ``kv_dtype="int8"`` stores the pool as
+        int8 with per-(block, KV head) scales: twice the blocks for the
+        same budget."""
         self.device = resolve_device(device)
         if not M.supports_paged_cache(cfg):
             raise ValueError(f"{cfg.name}: the port serves paged-KV "
                              f"architectures only")
         M.check_supported(cfg)
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
+                             f"got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
         self.cfg, self.params = cfg, params
         self.name = name
         self.clock = clock
         sched = sched or SchedulerConfig()
         self.slots = PagedCacheSlots(
             cfg, max_batch, capacity, block_size=sched.prefix_block,
-            pool_tokens=pool_tokens, device=self.device)
+            pool_tokens=pool_tokens, device=self.device, kv_dtype=kv_dtype)
+        # speculative decoding: draft up to spec_k tokens per sequence and
+        # score them in ONE multi-token verify forward
+        self.spec_k = spec_k
+        self.drafter = None
+        if speculative:
+            if not M.supports_speculative(cfg):
+                raise ValueError(
+                    "speculative decoding needs position-sliceable KV "
+                    "(uniform GQA/MLA stacks): rejected tokens cannot be "
+                    f"rolled back on {cfg.name}")
+            self.drafter = make_drafter(speculative, cfg, spec_k=spec_k,
+                                        capacity=capacity)
         self.capacity = capacity
         self.queue: deque[Request] = deque()
         self.running: Dict[int, Request] = {}
@@ -135,7 +162,10 @@ class InferenceEngine:
 
     def kv_stats(self) -> Dict[str, int]:
         """KV-memory accounting in pool blocks (shared prefix blocks count
-        once) and bytes."""
+        once) and bytes, under the reference's key names.  The port runs
+        on one device, so the tensor-parallel degree is 1 and the
+        per-device bytes are the whole pool's; an int8 pool's bytes
+        include its scale leaves."""
         bp = self.slots.bp
         pool_bytes = sum(t.numel() * t.element_size()
                          for t in self.slots.pool["stack"].values())
@@ -144,8 +174,9 @@ class InferenceEngine:
                 "kv_blocks_peak": bp.peak_used,
                 "kv_blocks_total": bp.num_blocks - 1,
                 "kv_block_size": self.slots.block_size,
-                "kv_block_bytes": per_block,
-                "kv_peak_bytes": per_block * bp.peak_used}
+                "kv_tp_degree": 1,
+                "kv_block_bytes_per_device": per_block,
+                "kv_peak_bytes_per_device": per_block * bp.peak_used}
 
     # ------------------------------------------------------------ steps
     def step(self):

@@ -6,8 +6,9 @@ paged path of the reference's ``serving/kvcache.py``).
 tables.  Blocks are allocated on demand and ref-counted, so memory tracks
 actual sequence lengths and the radix prefix cache shares physical blocks
 with running requests instead of copying KV.  ``BlockLedger`` is the
-node budget of the prefix cache.  The dense per-slot layout and the KV
-hand-off are not ported yet.
+node budget of the prefix cache.  The pool holds bf16 K/V, or int8 codes
+with float32 per-(block, KV head) scales (``kv_dtype="int8"``).  The
+dense per-slot layout and the KV hand-off are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.attention import INV_127
 
 NULL_BLOCK = 0   # reserved physical block: writes from inert slots and
                  # reads past a sequence's length land here, never on data
@@ -144,6 +146,11 @@ class PagedCacheSlots:
       of blocks is an explicit event the scheduler answers with tree
       eviction or preemption, never a silent over-commit.
 
+    ``kv_dtype="int8"`` stores int8 codes plus per-(block, KV head)
+    float32 scales (``M.make_quantized_paged_pool``); ``pool_tokens`` is
+    then a bf16-byte budget and buys twice the blocks, and prefill K/V is
+    quantized per block as it is inserted.
+
     Slot invariants: an inert slot has ``lengths[slot] == 1`` and a table
     row of ``NULL_BLOCK`` entries, so its decode-step writes land in the
     null block and its reads are masked out; ``release`` decrefs exactly
@@ -155,18 +162,32 @@ class PagedCacheSlots:
 
     def __init__(self, cfg: ModelConfig, max_batch: int, capacity: int,
                  dtype=torch.bfloat16, block_size: int = 16,
-                 pool_tokens: Optional[int] = None, device=None):
+                 pool_tokens: Optional[int] = None, device=None,
+                 kv_dtype: str = "bf16"):
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
+                             f"got {kv_dtype!r}")
         self.cfg = cfg
         self.B = max_batch
         self.capacity = capacity
         self.block_size = block_size
+        self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.blocks_per_seq = -(-capacity // block_size)
         pool_tokens = (max_batch * capacity if pool_tokens is None
                        else pool_tokens)
-        num_blocks = 1 + max(pool_tokens // block_size, self.blocks_per_seq)
-        self.pool = M.make_paged_pool(cfg, num_blocks, block_size, dtype,
-                                      self.device)
+        if kv_dtype == "int8":
+            # int8 blocks cost half the bytes of bf16 ones: the same
+            # budget buys twice the physical blocks
+            num_blocks = 1 + max((pool_tokens * 2) // block_size,
+                                 self.blocks_per_seq)
+            self.pool = M.make_quantized_paged_pool(cfg, num_blocks,
+                                                    block_size, self.device)
+        else:
+            num_blocks = 1 + max(pool_tokens // block_size,
+                                 self.blocks_per_seq)
+            self.pool = M.make_paged_pool(cfg, num_blocks, block_size,
+                                          dtype, self.device)
         self.bp = BlockPool(num_blocks)
         self.tables = np.full((max_batch, self.blocks_per_seq), NULL_BLOCK,
                               np.int32)
@@ -246,9 +267,12 @@ class PagedCacheSlots:
         return list(self.seq_blocks.get(slot, []))
 
     def trim(self, slot: int, length: int):
-        """Decref blocks past ``blocks_for(length)`` and null their table
-        entries (rolls back an over-allocation; shared prefix blocks lie
-        before any length a slot shrinks to)."""
+        """Roll back a speculative over-allocation: decref blocks past
+        ``blocks_for(length)`` and null their table entries.  A verify
+        step writes spec_k + 1 tail positions before accept/reject, so
+        the scheduler grows every slot up front and trims back to the
+        accepted length here.  Shared prefix blocks lie before any length
+        a slot shrinks to, so only private tail blocks are freed."""
         have = self.seq_blocks.get(slot)
         if not have:
             return
@@ -268,7 +292,11 @@ class PagedCacheSlots:
         allocated) blocks.  Unlike the reference, which returns an updated
         copy of the pool, this writes the pool in place on the device.
         The last block also receives the prefill's padding positions (or
-        zeros past S), as in the reference; attention masks them."""
+        zeros past S), as in the reference; attention masks them.  An
+        int8 pool gets each block quantized with one symmetric scale per
+        (block, KV head) over its positions and head dims, padding
+        included: ``clip(round(x / max(s, 1e-12)), -127, 127)`` with
+        ``s = max|x| * INV_127``, the reference's codes and scales."""
         nblk = self.blocks_for(length)
         ids = self.seq_blocks.get(slot, [])
         if len(ids) < nblk:
@@ -276,12 +304,21 @@ class PagedCacheSlots:
         idx = torch.as_tensor(ids[:nblk], dtype=torch.long,
                               device=self.device)
         span = nblk * self.block_size
-        for name, dst in self.pool["stack"].items():
+        stack = self.pool["stack"]
+        for name in ("k", "v"):
+            dst = stack[name]
             src = prefill_cache["stack"][name][:, 0]       # (L, S, KV, hd)
             n = min(src.shape[1], span)
             buf = torch.zeros((dst.shape[0], span) + dst.shape[3:],
-                              dtype=dst.dtype, device=dst.device)
+                              dtype=torch.float32 if self.kv_dtype == "int8"
+                              else dst.dtype, device=dst.device)
             buf[:, :n] = src[:, :n]
-            dst[:, idx] = buf.reshape(dst.shape[0], nblk, self.block_size,
-                                      *dst.shape[3:])
+            buf = buf.reshape(dst.shape[0], nblk, self.block_size,
+                              *dst.shape[3:])
+            if self.kv_dtype == "int8":
+                s_kd = buf.abs().amax(dim=(2, 4), keepdim=True) * INV_127
+                buf = torch.clamp(torch.round(
+                    buf / torch.clamp(s_kd, min=1e-12)), -127, 127)
+                stack[name + "_scale"][:, idx] = s_kd[:, :, 0, :, 0]
+            dst[:, idx] = buf.to(dst.dtype)
         self.lengths[slot] = length

@@ -2,8 +2,8 @@
 of the reference's ``serving/metrics.py`` request accounting).
 
 Timestamps are injected (``clock``) so tests can run against a virtual
-clock.  The speculative, hand-off and registry parts of the reference are
-not ported yet.
+clock.  The hand-off and registry parts of the reference are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -62,6 +62,12 @@ class RequestMetrics:
 class MetricsCollector:
     def __init__(self):
         self.requests: Dict[str, RequestMetrics] = {}
+        # speculative-decoding counters, aggregated per engine: one row
+        # is one decode slot in one verify launch
+        self.spec_rows = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
 
     def arrival(self, rid: str, t: float, n_prompt: int):
         self.requests[rid] = RequestMetrics(rid, t, n_prompt)
@@ -103,6 +109,18 @@ class MetricsCollector:
         r = self.requests[rid]
         r.n_preempted += 1
         r.preempt_times.append(t)
+
+    def speculative(self, n_drafted: int, n_accepted: int,
+                    n_emitted: int):
+        """One decode slot went through one speculative verify launch:
+        ``n_drafted`` tokens proposed, ``n_accepted`` of them accepted,
+        ``n_emitted`` actually emitted -- normally ``n_accepted + 1`` (the
+        correction or bonus token rides along), fewer when EOS or the
+        generation budget cuts the burst."""
+        self.spec_rows += 1
+        self.spec_drafted += n_drafted
+        self.spec_accepted += n_accepted
+        self.spec_emitted += n_emitted
 
     def reject(self, rid: str, t: float):
         """The request was refused admission (e.g. prompt + generation
@@ -153,4 +171,8 @@ class MetricsCollector:
             "prefix_hit_rate": (saved / prompt_tokens
                                 if prompt_tokens else 0.0),
             "tokens_per_s": gen / span if done and span > 0 else float("nan"),
+            "spec_acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                     if self.spec_drafted else float("nan")),
+            "spec_tokens_per_launch": (self.spec_emitted / self.spec_rows
+                                       if self.spec_rows else float("nan")),
         }

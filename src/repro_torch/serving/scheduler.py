@@ -16,9 +16,16 @@ greedy path of the reference's ``serving/scheduler.py``).
   blocks.  On exhaustion the scheduler first evicts unpinned prefix tree
   leaves, then preempts the latest-admitted running request, whose
   generated tokens are folded into its prompt so it resumes exactly.
+- **Speculative bursts.**  With a drafter attached (``engine.drafter``),
+  any micro-step with at least one decoding slot runs
+  :meth:`_spec_micro_step` instead: each decoding slot drafts up to
+  ``spec_k`` tokens, ONE multi-token verify forward scores them all, and
+  the slot emits 1..spec_k+1 tokens (greedy accept; the rejected tail is
+  rolled back by length and its blocks trimmed).  Prefilling slots ride
+  along, consuming one prompt token.
 
-Speculative bursts, LoRA adapters, the disaggregated hand-off roles and
-the graceful-degradation ladder of the reference are not ported yet.
+LoRA adapters, the disaggregated hand-off roles and the
+graceful-degradation ladder of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.serving.prefix_cache import (Match, PagedPrefixCache,
                                               supports_prefix_cache)
-from repro_torch.serving.sampling import sample
+from repro_torch.serving.sampling import sample, spec_accept_batched
 
 
 @dataclasses.dataclass
@@ -80,9 +87,12 @@ class ChunkedPrefillScheduler:
         # slot -> admission sequence number (preemption picks the max)
         self._admit_order: Dict[int, int] = {}
         self._admit_seq = itertools.count()
-        # model launches, for checking kernel launch counts per call
+        # model launches, for checking kernel launch counts per call:
+        # prefills, plain S == 1 micro-steps, and speculative verify
+        # micro-steps (T = spec_k + 1 tokens a row)
         self.prefills = 0
         self.micro_steps = 0
+        self.verify_steps = 0
 
     # ------------------------------------------------------------ tick
     def tick(self):
@@ -102,6 +112,11 @@ class ChunkedPrefillScheduler:
         # a preempted request resumes with its generated tokens folded
         # into the prompt; only the *remaining* budget counts
         need = len(req.prompt) + req.max_new_tokens - len(req.generated)
+        if eng.drafter is not None:
+            # the verify step writes spec_k + 1 tail positions before
+            # accept/reject, so the slot must address spec_k extra
+            # positions past the last real token
+            need += eng.spec_k
         if need > eng.capacity:
             # can never fit: explicit rejection, not a silent "finish"
             eng.queue.popleft()
@@ -222,6 +237,7 @@ class ChunkedPrefillScheduler:
         self.pending.pop(slot, None)
         self._admit_order.pop(slot, None)
         self._unlock(req)
+        self._release_drafter(slot)
         fresh = req.generated[req.n_folded:]
         if fresh:
             req.prompt = list(req.prompt) + list(fresh)
@@ -285,7 +301,12 @@ class ChunkedPrefillScheduler:
     def _micro_step(self):
         """One fused decode step for the whole batch.  Prefilling slots
         consume their next prompt token; decoding slots feed their last
-        sampled token (its KV gets written now) and emit a new one."""
+        sampled token (its KV gets written now) and emit a new one.  With
+        a drafter attached, a step with at least one decoding slot runs
+        the speculative variant instead."""
+        if self.eng.drafter is not None and any(
+                s not in self.pending for s in self.eng.running):
+            return self._spec_micro_step()
         self._grow_all()
         if not self.eng.running:
             return
@@ -324,7 +345,88 @@ class ChunkedPrefillScheduler:
             else:
                 self._emit(slot, req, int(sampled[slot]))
 
+    def _spec_micro_step(self):
+        """One speculative verify micro-step.  Every running slot is grown
+        to ``len + spec_k + 1`` first (preempting under pool pressure),
+        since the verify forward writes all T = spec_k + 1 tail positions
+        before the verdict is known."""
+        T = self.eng.spec_k + 1
+        self._grow_all(T)
+        if not self.eng.running:
+            return
+        self._spec_body(T)
+
+    def _spec_body(self, T: int):
+        """Per decoding slot: draft up to ``min(spec_k, budget - 1)``
+        tokens, then score ``[last_emitted, drafts...]`` for the whole
+        batch in ONE verify forward and accept greedily on the device
+        (one transfer for the batch).  Prefilling rows advance one prompt
+        token (no drafts: their row reduces to the plain step).  Lengths
+        are rolled back to the accepted burst, and tail blocks trimmed,
+        BEFORE emitting, because a finishing emit releases the slot."""
+        eng = self.eng
+        k = T - 1
+        B = eng.slots.B
+        toks = np.zeros((B, T), np.int32)
+        nd = np.zeros((B,), np.int32)
+        advance = np.zeros((B,), bool)
+        for slot, req in eng.running.items():
+            advance[slot] = True
+            if slot in self.pending:
+                toks[slot, 0] = req.prompt[self.pending[slot]]
+                continue
+            toks[slot, 0] = req.generated[-1]
+            # drafting past the remaining budget is wasted verification
+            cap = min(k, req.max_new_tokens - len(req.generated) - 1)
+            if cap <= 0:
+                continue
+            ctx = list(req.prompt) + list(req.generated)
+            drafts, _ = eng.drafter.propose(slot, ctx, cap, req.temperature)
+            if drafts:
+                toks[slot, 1:1 + len(drafts)] = drafts
+                nd[slot] = len(drafts)
+        base = np.asarray(eng.slots.lengths, np.int32)
+        lengths = np.where(advance, base + T, base).astype(np.int32)
+        dev = eng.slots.device
+        tt = torch.from_numpy(toks).to(dev)
+        logits, _ = M.verify_step_paged(
+            eng.cfg, eng.params, tt, eng.slots.pool,
+            eng.slots.tables_device(), torch.from_numpy(lengths).to(dev))
+        self.verify_steps += 1
+        out, nem = spec_accept_batched(logits, tt,
+                                       torch.from_numpy(nd).to(dev))
+        both = torch.cat([out, nem[:, None]], dim=1).cpu().numpy()
+        out, nem = both[:, :T], both[:, T]       # one transfer per step
+        final = base.copy()
+        for slot in eng.running:
+            final[slot] = base[slot] + (1 if slot in self.pending
+                                        else int(nem[slot]))
+            eng.slots.trim(slot, int(final[slot]))
+        eng.slots.lengths = final
+        for slot, req in list(eng.running.items()):
+            if slot in self.pending:
+                self.pending[slot] += 1
+                if self.pending[slot] >= len(req.prompt):
+                    del self.pending[slot]
+                    self._store_prompt(slot, req)
+                    self._emit(slot, req, int(out[slot, 0]))
+                continue
+            n = int(nem[slot])
+            emitted = 0
+            for t in range(n):
+                self._emit(slot, req, int(out[slot, t]))
+                emitted += 1
+                if req.done:
+                    break       # EOS or budget mid-burst: drop the tail
+            eng.metrics.speculative(int(nd[slot]), n - 1, emitted)
+
     # ------------------------------------------------------------ lifecycle
+    def _release_drafter(self, slot: int):
+        """Drop the drafter's per-slot state when the slot turns over
+        (finish or preemption)."""
+        if self.eng.drafter is not None:
+            self.eng.drafter.release(slot)
+
     def _store_prompt(self, slot: int, req):
         """Index this prompt's KV blocks into the radix tree (zero-copy:
         the tree refcounts the slot's own physical block ids)."""
@@ -352,3 +454,4 @@ class ChunkedPrefillScheduler:
             self.pending.pop(slot, None)
             self._admit_order.pop(slot, None)
             self._unlock(req)
+            self._release_drafter(slot)
